@@ -7,10 +7,10 @@ API, watch properties change, and write the result to y4m.
 
 import sys
 
-from mpv_frame_interpolator_tpu.api import Player
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.y4m import Y4MWriter
-from mpv_frame_interpolator_tpu.pipeline.engine import EngineConfig
+from mpv_frame_interpolator.api import Player
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.y4m import Y4MWriter
+from mpv_frame_interpolator.pipeline.engine import EngineConfig
 
 
 def main(out_path: str = "/tmp/embed_out.y4m") -> int:

@@ -1,11 +1,11 @@
-"""Serving-farm example: K independent streams interpolated on one chip.
+"""Serving-farm example: K independent streams interpolated on one device.
 
 Shows the MultiStreamEngine surface a transcode farm would use: each
 stream keeps its own cadence/quality/scene state (one overloaded stream
 degrades alone), while the compiled XLA programs are shared process-wide.
 
-    MFI_PLATFORM=cpu python examples/serving_farm.py   # CPU demo
-    python examples/serving_farm.py                    # on the TPU
+    JAX_PLATFORMS=cpu python examples/serving_farm.py   # CPU demo
+    python examples/serving_farm.py                     # on the GPU
 """
 
 import os
@@ -14,13 +14,9 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("MFI_PLATFORM"):
-    import jax
-    jax.config.update("jax_platforms", os.environ["MFI_PLATFORM"])
-
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.engine import EngineConfig
-from mpv_frame_interpolator_tpu.parallel.streams import MultiStreamEngine
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.engine import EngineConfig
+from mpv_frame_interpolator.parallel.streams import MultiStreamEngine
 
 N_STREAMS = 4
 N_FRAMES = 24

@@ -8,11 +8,11 @@ import time
 
 import pytest
 
-from mpv_frame_interpolator_tpu.api import Player, PropertyError, EventType
-from mpv_frame_interpolator_tpu.control.ipc import IPCServer
-from mpv_frame_interpolator_tpu.pipeline import resume
-from mpv_frame_interpolator_tpu.pipeline.engine import EngineConfig
-from mpv_frame_interpolator_tpu.io import synthetic
+from mpv_frame_interpolator.api import Player, PropertyError, EventType
+from mpv_frame_interpolator.control.ipc import IPCServer
+from mpv_frame_interpolator.pipeline import resume
+from mpv_frame_interpolator.pipeline.engine import EngineConfig
+from mpv_frame_interpolator.io import synthetic
 
 
 def make_player():
@@ -127,8 +127,8 @@ class TestAppletServerFifo:
         """Drive the applet protocol over real FIFOs like the widget does
         (HopperRenderSettingsApplet.py reads 512-byte status blocks)."""
         import threading
-        from mpv_frame_interpolator_tpu.control.applet import AppletServer
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.control.applet import AppletServer
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
 
         e = InterpolationEngine(EngineConfig(scene_detection=False,
@@ -171,10 +171,10 @@ class TestPlaylistQuitSurface:
         assert p.get_property("playlist-count") == 1
 
     def test_playlist_props_chained(self, tmp_path):
-        from mpv_frame_interpolator_tpu.io.playlist import ChainedSource
-        from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter
-        from mpv_frame_interpolator_tpu.io.sinks import NullSink
-        from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+        from mpv_frame_interpolator.io.playlist import ChainedSource
+        from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter
+        from mpv_frame_interpolator.io.sinks import NullSink
+        from mpv_frame_interpolator.pipeline.player import Pipeline
         cfg = synthetic.SyntheticConfig(width=32, height=32)
         for name in ("a", "b", "c"):
             with open(tmp_path / f"{name}.y4m", "wb") as fh:
@@ -193,8 +193,8 @@ class TestPlaylistQuitSurface:
 
     def test_quit_command(self):
         import threading
-        from mpv_frame_interpolator_tpu.io.sinks import NullSink
-        from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+        from mpv_frame_interpolator.io.sinks import NullSink
+        from mpv_frame_interpolator.pipeline.player import Pipeline
         cfg = synthetic.SyntheticConfig(width=32, height=32)
         p = make_player()
         pipe = Pipeline(synthetic.moving_box(cfg, 100000), p.engine,

@@ -7,10 +7,10 @@ import time
 
 import pytest
 
-from mpv_frame_interpolator_tpu.control.applet import AppletServer
-from mpv_frame_interpolator_tpu.control.applet_client import (
+from mpv_frame_interpolator.control.applet import AppletServer
+from mpv_frame_interpolator.control.applet_client import (
     main as client_main, read_status, send_code)
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 

@@ -4,8 +4,8 @@ cache stalls playback once (VERDICT r1 item 7 follow-through)."""
 
 import time
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 

@@ -29,33 +29,27 @@ class TestBench:
         assert payload["unit"] == "frames/sec"
         assert payload["value"] > 0
         assert "vs_baseline" in payload and "p99_e2e_latency_ms" in payload
+        # every line names the device its numbers were taken on
+        assert payload["platform"] == "cpu"
+        assert payload["device_count"] >= 1 and payload["device_kind"]
 
 
 class TestBenchHonestP99:
     def test_honest_p99_block_executes(self, monkeypatch, capsys):
-        """The honest-p99 path must be CPU-executable (VERDICT r4 weak #2:
-        it shipped with an UnboundLocalError that only the driver's TPU
-        run could hit).  MFI_BENCH_FORCE_P99 bypasses the
-        device-completion gate; the field must be PRESENT and no
-        p99_honest_error recorded."""
+        """The per-pair p99 latency path (push -> the pair's last output
+        ready) must run wherever the bench runs, the CPU included: a
+        path only the card executes ships broken."""
         monkeypatch.setenv("MFI_BENCH_WIDTH", "64")
         monkeypatch.setenv("MFI_BENCH_HEIGHT", "48")
         monkeypatch.setenv("MFI_BENCH_FRAMES", "8")
         monkeypatch.setenv("MFI_BENCH_RADIUS", "5")
-        monkeypatch.setenv("MFI_BENCH_FORCE_P99", "1")
         monkeypatch.setenv("MFI_BENCH_SKIP_DEFAULT", "1")
         bench = _load("bench.py", "bench_p99_under_test")
         assert bench.main() == 0
         payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert "p99_honest_error" not in payload, payload.get(
-            "p99_honest_error")
-        assert "p99_honest_latency_ms" in payload
-        assert "p99_honest_target_met" in payload
-        # the chip-side adjudication fields ride chip_ms_per_pair, which
-        # CPU runs also produce (scan-chained harness is platform-neutral)
-        if "chip_ms_per_pair" in payload:
-            assert "chip_latency_ms_per_output" in payload
-            assert "p99_adjudication" in payload
+        assert payload["p99_pair_latency_ms"] > 0
+        assert "p99_pair_target_met" in payload
+        assert payload["push_ms_per_pair"] > 0
 
 
 class TestGraftEntry:
@@ -74,8 +68,8 @@ class TestOddGeometries:
     @pytest.mark.parametrize("w,h", [(100, 56), (146, 82), (64, 36),
                                      (202, 150)])
     def test_engine_handles(self, w, h):
-        from mpv_frame_interpolator_tpu.io import synthetic
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.io import synthetic
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
         cfg = synthetic.SyntheticConfig(width=w, height=h, fps=24.0)
         e = InterpolationEngine(EngineConfig(scene_detection=False,

@@ -4,11 +4,11 @@ demux/demux.c cache; VERDICT r1 §2.6 D1)."""
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.cache import CachedSource
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.cache import CachedSource
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+from mpv_frame_interpolator.pipeline.player import Pipeline
 
 
 def gen(small_cfg, n=12):

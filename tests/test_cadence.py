@@ -4,7 +4,7 @@ import math
 
 import pytest
 
-from mpv_frame_interpolator_tpu.pipeline.cadence import (
+from mpv_frame_interpolator.pipeline.cadence import (
     CadenceEngine, InterpolationState)
 
 

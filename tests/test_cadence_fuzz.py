@@ -16,7 +16,7 @@ import random
 
 import pytest
 
-from mpv_frame_interpolator_tpu.pipeline.cadence import CadenceEngine
+from mpv_frame_interpolator.pipeline.cadence import CadenceEngine
 
 
 def check_plan(eng, plan):

@@ -15,13 +15,13 @@ import time
 
 import pytest
 
-from mpv_frame_interpolator_tpu.api import Player, PropertyError
-from mpv_frame_interpolator_tpu.control.applet import apply_command_code
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.api import Player, PropertyError
+from mpv_frame_interpolator.control.applet import apply_command_code
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+from mpv_frame_interpolator.pipeline.player import Pipeline
 
 
 class _Sink:

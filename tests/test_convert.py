@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from mpv_frame_interpolator_tpu.frame import NV12, P010
-from mpv_frame_interpolator_tpu.io import convert, synthetic
+from mpv_frame_interpolator.frame import NV12, P010
+from mpv_frame_interpolator.io import convert, synthetic
 
 
 class TestConvert:
@@ -46,8 +46,8 @@ class TestConvert:
 class TestAutoconvertScaling:
     def test_rescale_leg(self, small_cfg):
         import numpy as np
-        from mpv_frame_interpolator_tpu.io import synthetic
-        from mpv_frame_interpolator_tpu.io.convert import autoconvert
+        from mpv_frame_interpolator.io import synthetic
+        from mpv_frame_interpolator.io.convert import autoconvert
         f = next(iter(synthetic.moving_box(small_cfg, 1)))
         out = autoconvert(f, "nv12", want_width=32, want_height=24)
         assert (out.fmt.width, out.fmt.height) == (32, 24)
@@ -55,8 +55,8 @@ class TestAutoconvertScaling:
         assert out2.fmt.pixfmt == "p010" and out2.y.dtype == np.uint16
 
     def test_noop_when_matching(self, small_cfg):
-        from mpv_frame_interpolator_tpu.io import synthetic
-        from mpv_frame_interpolator_tpu.io.convert import autoconvert
+        from mpv_frame_interpolator.io import synthetic
+        from mpv_frame_interpolator.io.convert import autoconvert
         f = next(iter(synthetic.moving_box(small_cfg, 1)))
         assert autoconvert(f, "nv12") is f
         assert autoconvert(f, "nv12", want_width=64, want_height=48) is f

@@ -2,9 +2,8 @@
 
 The reference's only degradation lever is the search radius, which
 scales its launch grid (opticalFlowCalc.c:130, consumed by
-vf_HopperRender.c:326-345).  On this rebuild radius alone measured
-~1.02x at 4K (BENCH_r03 degradation_speedup) because the fused pair is
-warp- and fixed-step dominated -- so the controller gets two more
+vf_HopperRender.c:326-345).  On this rebuild the fused pair also
+carries work radius does not scale -- so the controller gets two more
 levers: pyramid depth and calc resolution (EngineConfig.degrade_rungs),
 stepped only after radius hits the floor and unwound first on recovery.
 """
@@ -12,14 +11,14 @@ stepped only after radius hits the floor and unwound first on recovery.
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.ops.flow import FlowGeometry
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 
 def _cad():
-    from mpv_frame_interpolator_tpu.pipeline.cadence import CadenceEngine
+    from mpv_frame_interpolator.pipeline.cadence import CadenceEngine
     c = CadenceEngine(60.0)
     c.on_source_frame(0.0, 24.0)
     return c
@@ -27,7 +26,7 @@ def _cad():
 
 class TestControllerLadder:
     def test_steps_ladder_after_radius_floor_then_too_slow(self):
-        from mpv_frame_interpolator_tpu.pipeline.quality import (
+        from mpv_frame_interpolator.pipeline.quality import (
             QualityController)
         c = _cad()
         q = QualityController(search_radius=6, too_slow_patience=2,
@@ -45,7 +44,7 @@ class TestControllerLadder:
         assert c.state.name == "TOO_SLOW"
 
     def test_cold_rung_is_not_entered(self):
-        from mpv_frame_interpolator_tpu.pipeline.quality import (
+        from mpv_frame_interpolator.pipeline.quality import (
             QualityController)
         c = _cad()
         q = QualityController(search_radius=5, too_slow_patience=99,
@@ -60,7 +59,7 @@ class TestControllerLadder:
         assert q.level == 1
 
     def test_recovery_unwinds_level_before_radius(self):
-        from mpv_frame_interpolator_tpu.pipeline.quality import (
+        from mpv_frame_interpolator.pipeline.quality import (
             QualityController)
         c = _cad()
         q = QualityController(search_radius=5, max_level=2)

@@ -7,11 +7,11 @@ real-time-free.
 
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
-from mpv_frame_interpolator_tpu.pipeline.present import PresentClock
+from mpv_frame_interpolator.pipeline.player import Pipeline
+from mpv_frame_interpolator.pipeline.present import PresentClock
 
 
 class FakeTime:

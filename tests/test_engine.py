@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame, psnr_arrays
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.ops import oracle
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.frame import FrameFormat, VideoFrame, psnr_arrays
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.ops import oracle
+from mpv_frame_interpolator.ops.flow import FlowGeometry
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.cadence import InterpolationState
+from mpv_frame_interpolator.pipeline.cadence import InterpolationState
 
 
 def make_engine(**kw):
@@ -176,13 +176,13 @@ class TestGeometrySwitch:
 
 class TestQualityController:
     def _cad(self):
-        from mpv_frame_interpolator_tpu.pipeline.cadence import CadenceEngine
+        from mpv_frame_interpolator.pipeline.cadence import CadenceEngine
         c = CadenceEngine(60.0)
         c.on_source_frame(0.0, 24.0)
         return c
 
     def test_decrements_then_too_slow_with_patience(self):
-        from mpv_frame_interpolator_tpu.pipeline.quality import QualityController
+        from mpv_frame_interpolator.pipeline.quality import QualityController
         c = self._cad()
         q = QualityController(search_radius=7, too_slow_patience=3)
         slow = c.source_frame_time  # way over budget (x1.4 > sft)
@@ -197,7 +197,7 @@ class TestQualityController:
         assert c.state.name == "TOO_SLOW"
 
     def test_hiccup_does_not_disable(self):
-        from mpv_frame_interpolator_tpu.pipeline.quality import QualityController
+        from mpv_frame_interpolator.pipeline.quality import QualityController
         c = self._cad()
         q = QualityController(search_radius=5, too_slow_patience=3)
         fast = c.source_frame_time / 10
@@ -208,14 +208,14 @@ class TestQualityController:
         assert c.state.name == "ACTIVE"
 
     def test_reference_parity_patience_1(self):
-        from mpv_frame_interpolator_tpu.pipeline.quality import QualityController
+        from mpv_frame_interpolator.pipeline.quality import QualityController
         c = self._cad()
         q = QualityController(search_radius=5, too_slow_patience=1)
         q.update(c.source_frame_time, c)
         assert c.state.name == "TOO_SLOW"
 
     def test_recovers_radius_upward(self):
-        from mpv_frame_interpolator_tpu.pipeline.quality import QualityController
+        from mpv_frame_interpolator.pipeline.quality import QualityController
         c = self._cad()
         q = QualityController(search_radius=5)
         for _ in range(20):
@@ -265,7 +265,7 @@ class TestP010LevelsSpec:
 
     def test_levels16_spec(self):
         import jax.numpy as jnp
-        from mpv_frame_interpolator_tpu.ops.warp import _levels_y, _levels_uv
+        from mpv_frame_interpolator.ops.warp import _levels_y, _levels_uv
         rng = np.random.default_rng(5)
         b = rng.integers(0, 65536, 4096).astype(np.int32)
         for k, w in ((16.0, 235.0), (0.0, 255.0), (32.0, 200.0)):
@@ -298,7 +298,7 @@ class TestStatsLog:
 
 class TestModeSwitchMidStream:
     def test_output_mode_change_between_frames(self, small_cfg):
-        from mpv_frame_interpolator_tpu.control.applet import apply_command_code
+        from mpv_frame_interpolator.control.applet import apply_command_code
         eng = make_engine()
         frames = list(synthetic.moving_box(small_cfg, 4))
         outs = []
@@ -332,7 +332,7 @@ class TestStageIdempotent:
 
 class TestStatsReset:
     def test_stats_reset(self):
-        from mpv_frame_interpolator_tpu.utils import StatsRegistry
+        from mpv_frame_interpolator.utils import StatsRegistry
         s = StatsRegistry()
         s.add("a", 1.0)
         with s.time("b"):
@@ -376,6 +376,6 @@ class TestBatchBucketing:
         for f in frames:
             eng.push(f)
         sizes = {spec[1] for spec in eng._warm}
-        from mpv_frame_interpolator_tpu.pipeline.engine import _BUCKETS
+        from mpv_frame_interpolator.pipeline.engine import _BUCKETS
         assert sizes <= set(_BUCKETS)
         assert len(sizes) <= 4

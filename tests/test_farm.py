@@ -14,11 +14,11 @@ import time
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.parallel.farm import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.parallel.farm import (
     StreamFarm, StreamWorkerError)
-from mpv_frame_interpolator_tpu.pipeline.cadence import InterpolationState
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.pipeline.cadence import InterpolationState
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 KW = dict(scene_detection=False, auto_quality=False, measure_timing=False)

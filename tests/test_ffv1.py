@@ -8,7 +8,7 @@ documented in docs/DEVIATIONS.md)."""
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import ffv1
+from mpv_frame_interpolator.io import ffv1
 
 
 def _planes(w, h, seed=0, smooth=True):
@@ -467,8 +467,8 @@ class TestDeepBits:
 
     def test_mkv_10bit_plays_as_p010(self, tmp_path):
         from tests.test_mkv import build_mkv
-        from mpv_frame_interpolator_tpu.frame import P010
-        from mpv_frame_interpolator_tpu.io.mkv import MKVReader
+        from mpv_frame_interpolator.frame import P010
+        from mpv_frame_interpolator.io.mkv import MKVReader
         w, h = 32, 16
         rng = np.random.default_rng(5)
         p = ffv1.FFV1Params(bits=10)
@@ -498,7 +498,7 @@ def _vector_packets(n=4, w=48, h=32, all_keyframes=True):
 class TestContainers:
     def test_avi_ffv1_plays(self, tmp_path):
         from tests.test_jpeg import build_avi
-        from mpv_frame_interpolator_tpu.io.avi import AVIReader
+        from mpv_frame_interpolator.io.avi import AVIReader
         frames, pkts = _vector_packets()
         data = build_avi(pkts, 48, 32, fourcc=b"FFV1")
         p = tmp_path / "f.avi"
@@ -512,7 +512,7 @@ class TestContainers:
 
     def test_avi_ffv1_seek_all_keyframes(self, tmp_path):
         from tests.test_jpeg import build_avi
-        from mpv_frame_interpolator_tpu.io.avi import AVIReader
+        from mpv_frame_interpolator.io.avi import AVIReader
         frames, pkts = _vector_packets()
         p = tmp_path / "f.avi"
         p.write_bytes(build_avi(pkts, 48, 32, fourcc=b"FFV1"))
@@ -526,7 +526,7 @@ class TestContainers:
 
     def test_avi_ffv1_seek_into_gop_rejected(self, tmp_path):
         from tests.test_jpeg import build_avi
-        from mpv_frame_interpolator_tpu.io.avi import AVIError, AVIReader
+        from mpv_frame_interpolator.io.avi import AVIError, AVIReader
         frames, pkts = _vector_packets(all_keyframes=False)
         p = tmp_path / "g.avi"
         p.write_bytes(build_avi(pkts, 48, 32, fourcc=b"FFV1"))
@@ -537,7 +537,7 @@ class TestContainers:
 
     def test_mkv_ffv1_plays(self, tmp_path):
         from tests.test_mkv import build_mkv
-        from mpv_frame_interpolator_tpu.io.mkv import MKVReader
+        from mpv_frame_interpolator.io.mkv import MKVReader
         frames, pkts = _vector_packets()
         data = build_mkv(None, 48, 32, codec=b"V_FFV1", payloads=pkts)
         p = tmp_path / "f.mkv"
@@ -551,7 +551,7 @@ class TestContainers:
 
     def test_mkv_ffv1_inter_frames_play_sequentially(self, tmp_path):
         from tests.test_mkv import build_mkv
-        from mpv_frame_interpolator_tpu.io.mkv import MKVReader
+        from mpv_frame_interpolator.io.mkv import MKVReader
         frames, pkts = _vector_packets(all_keyframes=False)
         p = tmp_path / "g.mkv"
         p.write_bytes(build_mkv(None, 48, 32, codec=b"V_FFV1",
@@ -562,7 +562,7 @@ class TestContainers:
 
     def test_mkv_v3_configuration_record_rejected(self, tmp_path):
         from tests.test_mkv import build_mkv
-        from mpv_frame_interpolator_tpu.io.mkv import MKVError, MKVReader
+        from mpv_frame_interpolator.io.mkv import MKVError, MKVReader
         # author a ConfigurationRecord-style blob whose first symbol is 3
         enc = ffv1.RangeEncoder()
         st = bytearray([128] * ffv1.CONTEXT_SIZE)
@@ -578,7 +578,7 @@ class TestContainers:
 
     def test_cli_transcodes_ffv1_avi(self, tmp_path):
         from tests.test_jpeg import build_avi
-        from mpv_frame_interpolator_tpu.cli import main
+        from mpv_frame_interpolator.cli import main
         _, pkts = _vector_packets()
         src = tmp_path / "in.avi"
         src.write_bytes(build_avi(pkts, 48, 32, fourcc=b"FFV1"))
@@ -592,7 +592,7 @@ class TestEncodeSink:
     """FFV1-in-MKV encode path: MKVWriter + FFV1MKVSink + CLI -o .mkv."""
 
     def test_mkv_writer_roundtrip(self, tmp_path):
-        from mpv_frame_interpolator_tpu.io.mkv import MKVReader, MKVWriter
+        from mpv_frame_interpolator.io.mkv import MKVReader, MKVWriter
         frames, pkts = _vector_packets()
         p = tmp_path / "w.mkv"
         with open(p, "wb") as fh:
@@ -612,7 +612,7 @@ class TestEncodeSink:
     def test_native_encoder_matches_python_bytes(self):
         if not ffv1.have_native():
             pytest.skip("native extension not built")
-        from mpv_frame_interpolator_tpu.native import _native
+        from mpv_frame_interpolator.native import _native
         w, h = 48, 32
         frames = [_planes(w, h, seed=s) for s in range(3)]
         enc = ffv1.FFV1Encoder(w, h)
@@ -625,8 +625,8 @@ class TestEncodeSink:
 
     def test_cli_lossless_transcode_loop(self, tmp_path):
         """y4m -> FFV1 MKV -> y4m must be bit-exact (lossless loop)."""
-        from mpv_frame_interpolator_tpu.cli import main
-        from mpv_frame_interpolator_tpu.io.y4m import Y4MReader
+        from mpv_frame_interpolator.cli import main
+        from mpv_frame_interpolator.io.y4m import Y4MReader
         from tests.test_playlist import write_y4m
         src = tmp_path / "in.y4m"
         write_y4m(src, n=5, w=48, h=32)
@@ -646,11 +646,11 @@ class TestEncodeSink:
             assert np.array_equal(fa.uv, fb.uv)
 
     def test_p010_sink_writes_10bit(self, tmp_path):
-        from mpv_frame_interpolator_tpu.frame import (FrameFormat, P010,
+        from mpv_frame_interpolator.frame import (FrameFormat, P010,
                                                       VideoFrame)
-        from mpv_frame_interpolator_tpu.io.mkv import MKVReader
-        from mpv_frame_interpolator_tpu.io.sinks import FFV1MKVSink
-        from mpv_frame_interpolator_tpu.pipeline.engine import OutputFrame
+        from mpv_frame_interpolator.io.mkv import MKVReader
+        from mpv_frame_interpolator.io.sinks import FFV1MKVSink
+        from mpv_frame_interpolator.pipeline.engine import OutputFrame
         w, h = 32, 16
         rng = np.random.default_rng(6)
         fmt = FrameFormat(w, h, P010)

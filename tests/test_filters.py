@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.filters import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.filters import (
     parse_chain, apply_chain, crop, vflip, hflip, rotate, fps)
-from mpv_frame_interpolator_tpu.frame import split_chroma
+from mpv_frame_interpolator.frame import split_chroma
 
 
 def frames(n=3, **kw):
@@ -55,7 +55,7 @@ class TestFilters:
             parse_chain("bogus=1")
 
     def test_engine_consumes_filtered(self):
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
         chain = parse_chain("crop=32:32,hflip")
         e = InterpolationEngine(EngineConfig(scene_detection=False,
@@ -82,7 +82,7 @@ class TestFiltersP010:
 
 class TestScale:
     def test_downscale_geometry_and_content(self, small_cfg):
-        from mpv_frame_interpolator_tpu.io.filters import scale
+        from mpv_frame_interpolator.io.filters import scale
         import numpy as np
         f = next(iter(synthetic.moving_box(small_cfg, 1)))
         out = scale(32, 24)(f)
@@ -92,9 +92,9 @@ class TestScale:
         assert abs(float(out.y.mean()) - float(f.y.mean())) < 3.0
 
     def test_upscale_identity_on_flat(self, small_cfg):
-        from mpv_frame_interpolator_tpu.io.filters import scale
+        from mpv_frame_interpolator.io.filters import scale
         import numpy as np
-        from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame
+        from mpv_frame_interpolator.frame import FrameFormat, VideoFrame
         fmt = FrameFormat(16, 16)
         f = VideoFrame(np.full((16, 16), 77, np.uint8),
                        np.full((8, 16), 128, np.uint8), fmt)
@@ -102,17 +102,17 @@ class TestScale:
         assert (out.y == 77).all() and (out.uv == 128).all()
 
     def test_keep_aspect(self, small_cfg):
-        from mpv_frame_interpolator_tpu.io.filters import scale
+        from mpv_frame_interpolator.io.filters import scale
         f = next(iter(synthetic.moving_box(small_cfg, 1)))   # 64x48
         out = scale(32, -2)(f)
         assert (out.fmt.width, out.fmt.height) == (32, 24)
 
     def test_parse_chain_scale(self):
-        from mpv_frame_interpolator_tpu.io.filters import parse_chain
+        from mpv_frame_interpolator.io.filters import parse_chain
         assert len(parse_chain("scale=128:96")) == 1
 
     def test_odd_geometry_rejected(self):
-        from mpv_frame_interpolator_tpu.io.filters import scale
+        from mpv_frame_interpolator.io.filters import scale
         import pytest
         with pytest.raises(ValueError):
             scale(33, 24)
@@ -120,7 +120,7 @@ class TestScale:
 
 class TestDeinterlace:
     def test_bob_doubles_rate_and_preserves_fields(self, small_cfg):
-        from mpv_frame_interpolator_tpu.io.filters import deinterlace
+        from mpv_frame_interpolator.io.filters import deinterlace
         import numpy as np
         f = next(iter(synthetic.moving_box(small_cfg, 1)))
         out = deinterlace("bob")(f)
@@ -134,12 +134,12 @@ class TestDeinterlace:
         assert top.fmt.height == f.fmt.height
 
     def test_weave_passthrough(self, small_cfg):
-        from mpv_frame_interpolator_tpu.io.filters import deinterlace
+        from mpv_frame_interpolator.io.filters import deinterlace
         f = next(iter(synthetic.moving_box(small_cfg, 1)))
         assert deinterlace("weave")(f) is f
 
     def test_chain_through_pipeline(self, small_cfg):
-        from mpv_frame_interpolator_tpu.io.filters import (apply_chain,
+        from mpv_frame_interpolator.io.filters import (apply_chain,
                                                            parse_chain)
         frames = list(synthetic.moving_box(small_cfg, 4))
         chain = parse_chain("deinterlace=bob,scale=32:24")

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.ops import oracle
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry, make_flow_fn, blur_flow
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.ops import oracle
+from mpv_frame_interpolator.ops.flow import FlowGeometry, make_flow_fn, blur_flow
 import jax.numpy as jnp
 
 from conftest import frame_pair, planar
@@ -115,7 +115,7 @@ class TestStridedFrames:
     passes stride as frameWidth and the encoded width as actualWidth)."""
 
     def test_flow_with_padding(self):
-        from mpv_frame_interpolator_tpu.io.synthetic import SyntheticConfig
+        from mpv_frame_interpolator.io.synthetic import SyntheticConfig
         cfg = SyntheticConfig(width=64, height=48, stride=80)
         geom, off_ref, blur_ref, off_jax, blur_jax = _run_both(cfg, radius=7)
         assert geom.stride == 80 and geom.actual_width == 64
@@ -125,8 +125,8 @@ class TestStridedFrames:
 
 class TestDeviceMetrics:
     def test_psnr_device_matches_host(self):
-        from mpv_frame_interpolator_tpu.ops.metrics import psnr_device
-        from mpv_frame_interpolator_tpu.frame import psnr_arrays
+        from mpv_frame_interpolator.ops.metrics import psnr_device
+        from mpv_frame_interpolator.frame import psnr_arrays
         rng = np.random.default_rng(0)
         a = rng.integers(0, 255, (64, 64)).astype(np.uint8)
         b = np.clip(a.astype(int) + rng.integers(-5, 5, a.shape), 0, 255).astype(np.uint8)

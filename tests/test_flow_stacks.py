@@ -13,7 +13,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from mpv_frame_interpolator_tpu.ops import flow as F
+from mpv_frame_interpolator.ops import flow as F
 
 
 def _geom(h, w):

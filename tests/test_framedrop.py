@@ -14,12 +14,12 @@ tests pin what the cadence engine does with that gap:
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.cadence import CadenceEngine
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.cadence import CadenceEngine
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
-from mpv_frame_interpolator_tpu.pipeline.present import PresentInfo
+from mpv_frame_interpolator.pipeline.player import Pipeline
+from mpv_frame_interpolator.pipeline.present import PresentInfo
 
 
 def collect_pts(cad, pts_seq, fps):

@@ -18,7 +18,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import ingest
+from mpv_frame_interpolator.io import ingest
 
 pytestmark = pytest.mark.skipif(
     not ingest.have_native_ingest(), reason="native extension not built")

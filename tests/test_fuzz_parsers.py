@@ -14,7 +14,7 @@ import string
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io.y4m import (
+from mpv_frame_interpolator.io.y4m import (
     MAX_DIMENSION, MAX_PIXELS, Y4MError, Y4MReader, parse_header)
 
 
@@ -96,9 +96,9 @@ class TestFuzzY4MHeader:
 class TestFuzzIPC:
     @pytest.fixture()
     def server(self, tmp_path):
-        from mpv_frame_interpolator_tpu.api import Player
-        from mpv_frame_interpolator_tpu.control.ipc import IPCServer
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.api import Player
+        from mpv_frame_interpolator.control.ipc import IPCServer
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
         player = Player(engine=InterpolationEngine(EngineConfig(
             scene_detection=False, auto_quality=False,
@@ -169,7 +169,7 @@ class TestFuzzIPC:
 
 class TestFuzzApplet:
     def test_code_line_parser(self):
-        from mpv_frame_interpolator_tpu.control.applet import parse_code_line
+        from mpv_frame_interpolator.control.applet import parse_code_line
         r = rng(5)
         for _ in range(5000):
             line = "".join(r.choice(string.printable)
@@ -178,9 +178,9 @@ class TestFuzzApplet:
             assert code is None or isinstance(code, int)
 
     def test_apply_any_int_code(self):
-        from mpv_frame_interpolator_tpu.control.applet import (
+        from mpv_frame_interpolator.control.applet import (
             apply_command_code)
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
         eng = InterpolationEngine(EngineConfig(
             scene_detection=False, auto_quality=False,
@@ -199,7 +199,7 @@ class TestFuzzApplet:
 
 class TestFuzzConfig:
     def test_random_config_text(self):
-        from mpv_frame_interpolator_tpu.options import (
+        from mpv_frame_interpolator.options import (
             ConfigError, parse_config_text)
         r = rng(8)
         chars = string.printable
@@ -211,7 +211,7 @@ class TestFuzzConfig:
                 pass
 
     def test_random_watch_later_files(self, tmp_path):
-        from mpv_frame_interpolator_tpu.pipeline import resume
+        from mpv_frame_interpolator.pipeline import resume
         r = rng(9)
         for i in range(500):
             text = "".join(r.choice(string.printable)

@@ -16,9 +16,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.mkv import MKVReader
-from mpv_frame_interpolator_tpu.io.stream import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.mkv import MKVReader
+from mpv_frame_interpolator.io.stream import (
     HttpFile, is_stream_url, open_http_file, open_stream, supports_ranges)
 
 from tests.test_mkv import build_mkv
@@ -131,7 +131,7 @@ def test_mkv_over_http_plays_and_seeks(serve, small_cfg):
 def test_y4m_over_http_streams(serve, small_cfg, tmp_path):
     import io
 
-    from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter
+    from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter
     buf = io.BytesIO()
     w = Y4MWriter(buf, small_cfg.width, small_cfg.height, 24.0)
     frames = list(synthetic.moving_box(small_cfg, 5))

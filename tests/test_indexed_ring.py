@@ -9,9 +9,9 @@ readers, recycle every buffer, and seek in O(1) via a ring restart.
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import ingest
-from mpv_frame_interpolator_tpu.io.mkv import MKVReader
-from mpv_frame_interpolator_tpu.io.mp4 import MP4Reader
+from mpv_frame_interpolator.io import ingest
+from mpv_frame_interpolator.io.mkv import MKVReader
+from mpv_frame_interpolator.io.mp4 import MP4Reader
 
 from test_mkv import build_mkv
 from test_mp4 import build_mp4
@@ -24,7 +24,7 @@ pytestmark = pytest.mark.skipif(
 
 @pytest.fixture()
 def frames(small_cfg):
-    from mpv_frame_interpolator_tpu.io import synthetic
+    from mpv_frame_interpolator.io import synthetic
     return list(synthetic.moving_box(small_cfg, 7))
 
 
@@ -104,10 +104,10 @@ class TestIndexedRingMP4:
     def test_pipeline_end_to_end(self, tmp_path, frames):
         """Full Pipeline run off the indexed ring (engine stage() calls the
         recycle hooks)."""
-        from mpv_frame_interpolator_tpu.io.sinks import NullSink
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.io.sinks import NullSink
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
-        from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+        from mpv_frame_interpolator.pipeline.player import Pipeline
         p = tmp_path / "t.mp4"
         p.write_bytes(build_mp4(frames, 64, 48))
         src = ingest.open_container(str(p))

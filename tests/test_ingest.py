@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import P010
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter
-from mpv_frame_interpolator_tpu.io.ingest import (
+from mpv_frame_interpolator.frame import P010
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter
+from mpv_frame_interpolator.io.ingest import (
     NativeY4MSource, have_native_ingest, open_y4m)
 
 pytestmark = pytest.mark.skipif(not have_native_ingest(),
@@ -138,10 +138,10 @@ class TestPipelineIntegration:
         """End-to-end: pipeline staging must return every buffer to the
         ring (allocation-free steady state, FramePool.stats()-style
         evidence the judge asked for)."""
-        from mpv_frame_interpolator_tpu.io.sinks import NullSink
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.io.sinks import NullSink
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
-        from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+        from mpv_frame_interpolator.pipeline.player import Pipeline
 
         path = write_y4m(tmp_path, n=16, w=64, h=48)
         src = NativeY4MSource(path, ring_depth=3)
@@ -158,9 +158,9 @@ class TestPipelineIntegration:
         src.close()
 
     def test_pipeline_seek_native_source(self, tmp_path):
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
-        from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+        from mpv_frame_interpolator.pipeline.player import Pipeline
 
         path = write_y4m(tmp_path, n=24, w=32, h=16)
         src = NativeY4MSource(path, ring_depth=3)
@@ -218,8 +218,8 @@ class TestPipeIngest:
     def test_cli_stdin_native(self, tmp_path, monkeypatch, capsys):
         import sys
         import threading
-        from mpv_frame_interpolator_tpu.cli import make_source, build_parser
-        from mpv_frame_interpolator_tpu.options import parse_with_config
+        from mpv_frame_interpolator.cli import make_source, build_parser
+        from mpv_frame_interpolator.options import parse_with_config
         path = write_y4m(tmp_path, n=4, w=64, h=48)
         data = open(path, "rb").read()
         r, w = os.pipe()

@@ -6,7 +6,7 @@ import time
 
 import pytest
 
-from mpv_frame_interpolator_tpu.control.input import (
+from mpv_frame_interpolator.control.input import (
     DEFAULT_BINDINGS, KeyDispatcher, TerminalInput, decode_keys,
     parse_input_conf)
 
@@ -56,12 +56,12 @@ class TestDecodeKeys:
 
 
 def _pipeline(n=40):
-    from mpv_frame_interpolator_tpu.api import Player
-    from mpv_frame_interpolator_tpu.io import synthetic
-    from mpv_frame_interpolator_tpu.io.sinks import NullSink
-    from mpv_frame_interpolator_tpu.pipeline.engine import (
+    from mpv_frame_interpolator.api import Player
+    from mpv_frame_interpolator.io import synthetic
+    from mpv_frame_interpolator.io.sinks import NullSink
+    from mpv_frame_interpolator.pipeline.engine import (
         EngineConfig, InterpolationEngine)
-    from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+    from mpv_frame_interpolator.pipeline.player import Pipeline
     cfg = synthetic.SyntheticConfig(width=64, height=48)
     engine = InterpolationEngine(EngineConfig(
         background_precompile=False, measure_timing=False))
@@ -118,13 +118,13 @@ class TestKeyDispatcher:
     def test_seek_during_playback(self):
         """RIGHT during a run lands a real source seek."""
         import threading
-        from mpv_frame_interpolator_tpu.io.cache import CachedSource
-        from mpv_frame_interpolator_tpu.api import Player
-        from mpv_frame_interpolator_tpu.io import synthetic
-        from mpv_frame_interpolator_tpu.io.sinks import NullSink
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.io.cache import CachedSource
+        from mpv_frame_interpolator.api import Player
+        from mpv_frame_interpolator.io import synthetic
+        from mpv_frame_interpolator.io.sinks import NullSink
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
-        from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+        from mpv_frame_interpolator.pipeline.player import Pipeline
         cfg = synthetic.SyntheticConfig(width=64, height=48)
         engine = InterpolationEngine(EngineConfig(
             background_precompile=False, measure_timing=False))

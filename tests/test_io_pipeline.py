@@ -6,16 +6,16 @@ import os
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import NV12, P010
-from mpv_frame_interpolator_tpu.io import synthetic, sinks
-from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter, RawYUVReader
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.frame import NV12, P010
+from mpv_frame_interpolator.io import synthetic, sinks
+from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter, RawYUVReader
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
-from mpv_frame_interpolator_tpu.pipeline.present import PresentClock
-from mpv_frame_interpolator_tpu.control.applet import (
+from mpv_frame_interpolator.pipeline.player import Pipeline
+from mpv_frame_interpolator.pipeline.present import PresentClock
+from mpv_frame_interpolator.control.applet import (
     apply_command_code, telemetry_text)
-from mpv_frame_interpolator_tpu.pipeline.cadence import InterpolationState
+from mpv_frame_interpolator.pipeline.cadence import InterpolationState
 
 
 def eng(**kw):
@@ -214,7 +214,7 @@ class TestY4MFuzz:
         b"NOTAY4M W64 H48\n",
     ])
     def test_garbage_headers_raise_cleanly(self, blob):
-        from mpv_frame_interpolator_tpu.io.y4m import Y4MError
+        from mpv_frame_interpolator.io.y4m import Y4MError
         try:
             frames = list(Y4MReader(io.BytesIO(blob)))
             # headers that parse but carry no/short frames yield nothing
@@ -229,7 +229,7 @@ class TestY4MFuzz:
 
     def test_bad_frame_marker(self):
         blob = (b"YUV4MPEG2 W64 H48 F24:1 C420\nJUNK\n" + b"\x55" * 4608)
-        from mpv_frame_interpolator_tpu.io.y4m import Y4MError
+        from mpv_frame_interpolator.io.y4m import Y4MError
         with pytest.raises(Y4MError):
             list(Y4MReader(io.BytesIO(blob)))
 
@@ -239,8 +239,8 @@ class TestConcurrentControl:
         import json as _json
         import socket as _socket
         import threading
-        from mpv_frame_interpolator_tpu.api import Player
-        from mpv_frame_interpolator_tpu.control.ipc import IPCServer
+        from mpv_frame_interpolator.api import Player
+        from mpv_frame_interpolator.control.ipc import IPCServer
 
         e = eng()
         player = Player(engine=e)
@@ -301,8 +301,8 @@ class TestFfmpegDecode:
         a y4m stream (the real binary is absent in this image)."""
         import stat
         import sys as _sys
-        from mpv_frame_interpolator_tpu.io import synthetic as _syn
-        from mpv_frame_interpolator_tpu.io.y4m import Y4MWriter
+        from mpv_frame_interpolator.io import synthetic as _syn
+        from mpv_frame_interpolator.io.y4m import Y4MWriter
         clip = tmp_path / "clip.y4m"
         with open(clip, "wb") as fh:
             w = Y4MWriter(fh, 64, 48, 24.0)
@@ -315,7 +315,7 @@ class TestFfmpegDecode:
         stub.chmod(stub.stat().st_mode | stat.S_IEXEC)
         monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
 
-        from mpv_frame_interpolator_tpu.io import decode
+        from mpv_frame_interpolator.io import decode
         assert decode.have_ffmpeg()
         frames = list(decode.ffmpeg_source("whatever.mkv"))
         assert len(frames) == 3
@@ -323,7 +323,7 @@ class TestFfmpegDecode:
         assert frames[0].nominal_fps == pytest.approx(24.0)
 
     def test_missing_ffmpeg_raises_cleanly(self, monkeypatch):
-        from mpv_frame_interpolator_tpu.io import decode
+        from mpv_frame_interpolator.io import decode
         monkeypatch.setenv("PATH", "/nonexistent")
         with pytest.raises(RuntimeError, match="ffmpeg is not installed"):
             list(decode.ffmpeg_source("x.mkv"))
@@ -383,7 +383,7 @@ class TestFramedrop:
     def test_sustained_lateness_sheds_source_frames(self, small_cfg):
         """check_framedrop analog: 8 consecutive late presents drop the
         next source frame; cadence re-anchors across the gap."""
-        from mpv_frame_interpolator_tpu.pipeline.present import PresentInfo
+        from mpv_frame_interpolator.pipeline.present import PresentInfo
         e = eng()
 
         class LateClock:
@@ -416,7 +416,7 @@ class TestFramedrop:
 class TestUnderrun:
     def test_slow_source_counts_underruns(self, small_cfg):
         import time as _t
-        from mpv_frame_interpolator_tpu.pipeline.present import PresentClock
+        from mpv_frame_interpolator.pipeline.present import PresentClock
 
         def slow_source():
             for f in synthetic.moving_box(small_cfg, 4):

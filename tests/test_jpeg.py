@@ -17,10 +17,10 @@ import struct
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import jpeg as jpeg_mod
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.avi import AVIError, AVIReader
-from mpv_frame_interpolator_tpu.io.jpeg import (decode_jpeg_frame,
+from mpv_frame_interpolator.io import jpeg as jpeg_mod
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.avi import AVIError, AVIReader
+from mpv_frame_interpolator.io.jpeg import (decode_jpeg_frame,
                                                 decode_jpeg_planes,
                                                 mjpeg_source,
                                                 split_jpeg_stream)
@@ -144,7 +144,7 @@ class TestDecodeJpeg:
         silently mis-decode; the Pillow fallback decodes progressive
         correctly via libjpeg, so rejection only applies when the
         extension is built."""
-        from mpv_frame_interpolator_tpu.native import HAVE_NATIVE, _native
+        from mpv_frame_interpolator.native import HAVE_NATIVE, _native
         if not (HAVE_NATIVE and hasattr(_native, "decode_jpeg")):
             pytest.skip("native decoder absent; Pillow fallback "
                         "legitimately decodes progressive JPEG")
@@ -214,7 +214,7 @@ class TestMKVMJPEG:
         mkv = build_mkv(None, 64, 48, codec=b"V_MJPEG", payloads=datas)
         p = tmp_path / "m.mkv"
         p.write_bytes(mkv)
-        from mpv_frame_interpolator_tpu.io.mkv import MKVReader
+        from mpv_frame_interpolator.io.mkv import MKVReader
         rdr = MKVReader(str(p))
         assert (rdr.width, rdr.height) == (64, 48)
         frames = list(rdr)
@@ -234,7 +234,7 @@ class TestMP4MJPEG:
         mp4 = build_mp4(None, 64, 48, fourcc=b"jpeg", payloads=datas)
         p = tmp_path / "m.mp4"
         p.write_bytes(mp4)
-        from mpv_frame_interpolator_tpu.io.mp4 import MP4Reader
+        from mpv_frame_interpolator.io.mp4 import MP4Reader
         rdr = MP4Reader(str(p))
         frames = list(rdr)
         assert len(frames) == 4

@@ -5,9 +5,9 @@ the chip; these reshape forms must select exactly the same elements)."""
 import numpy as np
 import jax.numpy as jnp
 
-from mpv_frame_interpolator_tpu.ops.lanes import col_take, deinterleave_uv
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry
-from mpv_frame_interpolator_tpu.ops import warp as W
+from mpv_frame_interpolator.ops.lanes import col_take, deinterleave_uv
+from mpv_frame_interpolator.ops.flow import FlowGeometry
+from mpv_frame_interpolator.ops import warp as W
 
 
 def test_col_take_matches_slice():

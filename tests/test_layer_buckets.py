@@ -21,11 +21,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import split_chroma
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry, _flow_impl
-from mpv_frame_interpolator_tpu.ops.oracle import MAX_SEARCH_RADIUS
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.frame import split_chroma
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.ops.flow import FlowGeometry, _flow_impl
+from mpv_frame_interpolator.ops.oracle import MAX_SEARCH_RADIUS
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 

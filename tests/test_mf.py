@@ -11,8 +11,8 @@ import zlib
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import mf
-from mpv_frame_interpolator_tpu.utils.png import (decode_png, encode_png,
+from mpv_frame_interpolator.io import mf
+from mpv_frame_interpolator.utils.png import (decode_png, encode_png,
                                                   write_png)
 
 rng = np.random.default_rng(7)
@@ -314,7 +314,7 @@ def test_mf_errors(tmp_path):
 
 
 def test_mf_cli_routing(tmp_path):
-    from mpv_frame_interpolator_tpu.cli import build_parser, make_source
+    from mpv_frame_interpolator.cli import build_parser, make_source
     _write_seq(tmp_path, [f"c{k}.png" for k in range(3)])
     parser = build_parser()
     args = parser.parse_args([f"mf://{tmp_path}/c*.png", "--mf-fps", "4"])

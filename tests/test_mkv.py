@@ -12,8 +12,8 @@ import struct
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.mkv import MKVError, MKVReader
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.mkv import MKVError, MKVReader
 
 
 # -- minimal EBML writer ------------------------------------------------
@@ -167,8 +167,8 @@ class TestMKVReader:
 
 class TestPipelineIntegration:
     def test_cli_source_resolution(self, tmp_path, frames):
-        from mpv_frame_interpolator_tpu.cli import make_source, build_parser
-        from mpv_frame_interpolator_tpu.options import parse_with_config
+        from mpv_frame_interpolator.cli import make_source, build_parser
+        from mpv_frame_interpolator.options import parse_with_config
         path = write_tmp(tmp_path, build_mkv(frames, 64, 48))
         args = parse_with_config(build_parser(), ["--no-config", path])
         src, w, h = make_source(args)

@@ -4,12 +4,12 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from mpv_frame_interpolator_tpu import models
-from mpv_frame_interpolator_tpu.models.hopper import HopperModel
-from mpv_frame_interpolator_tpu.ops import oracle
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator import models
+from mpv_frame_interpolator.models.hopper import HopperModel
+from mpv_frame_interpolator.ops import oracle
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.io import synthetic
+from mpv_frame_interpolator.io import synthetic
 
 from conftest import frame_pair, planar
 
@@ -99,7 +99,7 @@ class TestFallbackModels:
 class TestBatchModes:
     def test_sbs_batch_matches_single(self, small_cfg):
         import jax.numpy as jnp
-        from mpv_frame_interpolator_tpu.ops.warp import (
+        from mpv_frame_interpolator.ops.warp import (
             make_warp_fn, make_warp_batch_fn, SIDE_BY_SIDE_2)
         f1, f2 = frame_pair(small_cfg)
         m = HopperModel.for_frame(f1.fmt.height, f1.fmt.width)
@@ -175,7 +175,7 @@ class TestHopperQ:
         """Analytic content: luma sin pattern, frame2 = frame1 shifted by
         `shift` px; ground truth at ANY subpixel position is computable."""
         import numpy as np
-        from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame, interleave_chroma
+        from mpv_frame_interpolator.frame import FrameFormat, VideoFrame, interleave_chroma
 
         def pattern(delta):
             x = np.arange(w)[None, :] - delta
@@ -200,9 +200,9 @@ class TestHopperQ:
         # symmetrically and the blend cancels most of the error, so the
         # bilinear win is small there; off-center it is decisive
         import jax.numpy as jnp
-        from mpv_frame_interpolator_tpu.frame import psnr_arrays
-        from mpv_frame_interpolator_tpu.ops import warp as W
-        from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry
+        from mpv_frame_interpolator.frame import psnr_arrays
+        from mpv_frame_interpolator.ops import warp as W
+        from mpv_frame_interpolator.ops.flow import FlowGeometry
 
         shift = 5
         f1, f2, pattern = self._sine_pair(shift)
@@ -255,9 +255,9 @@ class TestHopperQChroma:
     def test_subpixel_chroma(self):
         """Chroma sine pan: hopperq's bilinear chroma must beat nearest."""
         import jax.numpy as jnp
-        from mpv_frame_interpolator_tpu.frame import (
+        from mpv_frame_interpolator.frame import (
             FrameFormat, VideoFrame, interleave_chroma, psnr_arrays)
-        from mpv_frame_interpolator_tpu.ops import warp as W
+        from mpv_frame_interpolator.ops import warp as W
 
         w, h, shift = 128, 64, 6
 
@@ -329,7 +329,7 @@ class TestHopperXQ:
         """On a static (zero-motion, fully agreeing) scene the occlusion
         term is inactive: hopperxq == hopperq exactly."""
         import numpy as np
-        from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame
+        from mpv_frame_interpolator.frame import FrameFormat, VideoFrame
         fmt = FrameFormat(64, 48)
         still = VideoFrame(np.full((48, 64), 120, np.uint8),
                            np.full((24, 64), 128, np.uint8), fmt,

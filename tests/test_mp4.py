@@ -11,8 +11,8 @@ import struct
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.mp4 import MP4Error, MP4Reader
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.mp4 import MP4Error, MP4Reader
 
 
 def box(btype: bytes, payload: bytes) -> bytes:
@@ -157,8 +157,8 @@ class TestMP4Reader:
 
 class TestCLIIntegration:
     def test_cli_source_resolution(self, tmp_path, frames):
-        from mpv_frame_interpolator_tpu.cli import make_source, build_parser
-        from mpv_frame_interpolator_tpu.options import parse_with_config
+        from mpv_frame_interpolator.cli import make_source, build_parser
+        from mpv_frame_interpolator.options import parse_with_config
         path = write_tmp(tmp_path, build_mp4(frames, 64, 48))
         args = parse_with_config(build_parser(), ["--no-config", path])
         src, w, h = make_source(args)

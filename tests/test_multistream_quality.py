@@ -10,10 +10,10 @@ import dataclasses as dc
 
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.cadence import InterpolationState
-from mpv_frame_interpolator_tpu.pipeline.engine import EngineConfig
-from mpv_frame_interpolator_tpu.parallel.streams import MultiStreamEngine
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.cadence import InterpolationState
+from mpv_frame_interpolator.pipeline.engine import EngineConfig
+from mpv_frame_interpolator.parallel.streams import MultiStreamEngine
 
 
 def sources(small_cfg, n_streams, n_frames, fps=None):
@@ -92,7 +92,7 @@ class TestPerStreamState:
         """batch_dispatch carries per-stream radii: streams at different
         radii produce their own quality outputs in one dispatch."""
         import numpy as np
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.pipeline.engine import (
             InterpolationEngine)
         kw = dict(scene_detection=False, auto_quality=False,
                   measure_timing=False)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu import native
+from mpv_frame_interpolator import native
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])

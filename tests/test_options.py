@@ -9,8 +9,8 @@ import os
 
 import pytest
 
-from mpv_frame_interpolator_tpu.cli import build_parser
-from mpv_frame_interpolator_tpu.options import (
+from mpv_frame_interpolator.cli import build_parser
+from mpv_frame_interpolator.options import (
     ConfigError, parse_config_text, parse_with_config)
 
 

@@ -12,7 +12,7 @@ import math
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.ops import oracle
+from mpv_frame_interpolator.ops import oracle
 
 
 def mirror_inside_s(pos, dim):

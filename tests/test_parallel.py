@@ -5,13 +5,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from mpv_frame_interpolator_tpu.frame import split_chroma
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry, make_flow_fn
-from mpv_frame_interpolator_tpu.parallel.batch import PairParallelPool
-from mpv_frame_interpolator_tpu.parallel.sharding import (
+from mpv_frame_interpolator.frame import split_chroma
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.ops.flow import FlowGeometry, make_flow_fn
+from mpv_frame_interpolator.parallel.batch import PairParallelPool
+from mpv_frame_interpolator.parallel.sharding import (
     make_mesh, sharded_flow_fn)
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 from conftest import frame_pair, planar
@@ -76,7 +76,7 @@ class TestPairParallel:
 
 class TestMultiStream:
     def test_batched_matches_single(self, small_cfg):
-        from mpv_frame_interpolator_tpu.parallel.streams import MultiStreamEngine
+        from mpv_frame_interpolator.parallel.streams import MultiStreamEngine
         import dataclasses as dc
         cfgs = [dc.replace(small_cfg, seed=small_cfg.seed + k)
                 for k in range(3)]
@@ -107,7 +107,7 @@ class TestMultiStream:
                 np.testing.assert_array_equal(va.uv, vb.uv)
 
     def test_idle_stream_and_mixed_cadence(self, small_cfg):
-        from mpv_frame_interpolator_tpu.parallel.streams import MultiStreamEngine
+        from mpv_frame_interpolator.parallel.streams import MultiStreamEngine
         ms = MultiStreamEngine(EngineConfig(
             scene_detection=False, auto_quality=False,
             measure_timing=False), n_streams=2)
@@ -119,7 +119,7 @@ class TestMultiStream:
         assert len(outs1[1]) == 1      # stream 1 anchor passthrough
 
     def test_geometry_mismatch_rejected(self, small_cfg):
-        from mpv_frame_interpolator_tpu.parallel.streams import MultiStreamEngine
+        from mpv_frame_interpolator.parallel.streams import MultiStreamEngine
         ms = MultiStreamEngine(EngineConfig(scene_detection=False,
                                             auto_quality=False,
                                             measure_timing=False),
@@ -131,7 +131,7 @@ class TestMultiStream:
             ms.push_batch([f_small, f_big])
 
     def test_vmapped_dispatch_matches_sequential(self, small_cfg):
-        from mpv_frame_interpolator_tpu.parallel.streams import MultiStreamEngine
+        from mpv_frame_interpolator.parallel.streams import MultiStreamEngine
         import dataclasses as dc
         kw = dict(scene_detection=False, auto_quality=False,
                   measure_timing=False, initial_search_radius=5)
@@ -155,9 +155,9 @@ class TestMultiStream:
 class TestRowShardedWarp:
     def test_matches_unsharded(self, small_cfg):
         import jax.numpy as jnp
-        from mpv_frame_interpolator_tpu.ops import oracle
-        from mpv_frame_interpolator_tpu.ops.warp import make_warp_fn, BLENDED_FRAME
-        from mpv_frame_interpolator_tpu.parallel.sharding import (
+        from mpv_frame_interpolator.ops import oracle
+        from mpv_frame_interpolator.ops.warp import make_warp_fn, BLENDED_FRAME
+        from mpv_frame_interpolator.parallel.sharding import (
             make_mesh, row_sharded_warp_fn)
         f1, f2 = frame_pair(small_cfg, "gradient_pan")
         geom = FlowGeometry.create(f1.fmt.height, f1.fmt.stride, f1.fmt.width)

@@ -5,11 +5,11 @@ import time
 
 import pytest
 
-from mpv_frame_interpolator_tpu.api import Player, PropertyError
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.api import Player, PropertyError
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+from mpv_frame_interpolator.pipeline.player import Pipeline
 
 
 def eng():
@@ -70,8 +70,8 @@ class TestPause:
 
     def test_seek_while_paused(self, small_cfg):
         import io
-        from mpv_frame_interpolator_tpu.io import y4m
-        from mpv_frame_interpolator_tpu.io.ingest import open_y4m
+        from mpv_frame_interpolator.io import y4m
+        from mpv_frame_interpolator.io.ingest import open_y4m
         buf = io.BytesIO()
         w = y4m.Y4MWriter(buf, 64, 48, 24.0)
         for f in synthetic.moving_box(small_cfg, 48):

@@ -8,10 +8,10 @@ import sys
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.playlist import (ChainedSource,
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.playlist import (ChainedSource,
                                                     parse_playlist)
-from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter
+from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter
 
 
 def write_y4m(path, n=6, w=64, h=48, fps=24.0, seed=1):
@@ -88,11 +88,11 @@ class TestCLIPlaylist:
         write_y4m(a, n=4)
         write_y4m(b, n=4)
         r = subprocess.run(
-            [sys.executable, "-m", "mpv_frame_interpolator_tpu",
+            [sys.executable, "-m", "mpv_frame_interpolator",
              str(a), str(b), "--untimed", "--no-resume",
              "--display-fps", "24", "--frames", "0", "-o", str(out)],
             capture_output=True, text=True, timeout=600,
-            env={**os.environ, "MFI_PLATFORM": "cpu"})
+            env=dict(os.environ))
         assert r.returncode == 0, r.stderr[-2000:]
         got = list(Y4MReader(open(out, "rb")))
         assert len(got) >= 7        # both files' frames made it out
@@ -105,11 +105,11 @@ class TestCLIPlaylist:
         lst.write_text(f"# comment\n{b}\n")
         out = tmp_path / "out.y4m"
         r = subprocess.run(
-            [sys.executable, "-m", "mpv_frame_interpolator_tpu",
+            [sys.executable, "-m", "mpv_frame_interpolator",
              str(a), "--playlist", str(lst), "--untimed", "--no-resume",
              "--display-fps", "24", "--frames", "0", "-o", str(out)],
             capture_output=True, text=True, timeout=600,
-            env={**os.environ, "MFI_PLATFORM": "cpu"})
+            env=dict(os.environ))
         assert r.returncode == 0, r.stderr[-2000:]
         got = list(Y4MReader(open(out, "rb")))
         assert len(got) >= 5
@@ -154,7 +154,7 @@ class TestEDL:
     """mpv EDL v0 timelines (demux/demux_edl.c analog)."""
 
     def test_parse_positional_and_named(self, tmp_path):
-        from mpv_frame_interpolator_tpu.io.playlist import (EDLEntry,
+        from mpv_frame_interpolator.io.playlist import (EDLEntry,
                                                             parse_playlist)
         p = tmp_path / "t.edl"
         p.write_text("# mpv EDL v0\n"
@@ -169,7 +169,7 @@ class TestEDL:
         assert got[0].path == str(tmp_path / "a.y4m")
 
     def test_parse_quoted_filename(self, tmp_path):
-        from mpv_frame_interpolator_tpu.io.playlist import parse_playlist
+        from mpv_frame_interpolator.io.playlist import parse_playlist
         p = tmp_path / "t.edl"
         p.write_text("# mpv EDL v0\n%8%a, b.y4m,2,3\n")
         (e,) = parse_playlist(str(p))
@@ -177,7 +177,7 @@ class TestEDL:
         assert e.start == 2 and e.length == 3
 
     def test_suffix_detection_without_header(self, tmp_path):
-        from mpv_frame_interpolator_tpu.io.playlist import parse_playlist
+        from mpv_frame_interpolator.io.playlist import parse_playlist
         p = tmp_path / "t.edl"
         p.write_text("a.y4m,0,1\n")
         (e,) = parse_playlist(str(p))
@@ -185,7 +185,7 @@ class TestEDL:
 
     def test_special_headers_rejected(self, tmp_path):
         import pytest
-        from mpv_frame_interpolator_tpu.io.playlist import parse_playlist
+        from mpv_frame_interpolator.io.playlist import parse_playlist
         p = tmp_path / "t.edl"
         p.write_text("# mpv EDL v0\n!no_clip\na.y4m\n")
         with pytest.raises(ValueError, match="no_clip"):
@@ -193,7 +193,7 @@ class TestEDL:
 
     def test_bad_segments_rejected(self, tmp_path):
         import pytest
-        from mpv_frame_interpolator_tpu.io.playlist import parse_playlist
+        from mpv_frame_interpolator.io.playlist import parse_playlist
         for body in (",1,2\n", "a.y4m,xx\n", "a.y4m,-1\n", "a.y4m,0,0\n",
                      "# mpv EDL v0\n"):
             p = tmp_path / "t.edl"
@@ -203,7 +203,7 @@ class TestEDL:
                 parse_playlist(str(p))
 
     def test_clip_source_bounds_and_rebase(self, tmp_path):
-        from mpv_frame_interpolator_tpu.io.playlist import ClipSource
+        from mpv_frame_interpolator.io.playlist import ClipSource
         a = tmp_path / "a.y4m"
         frames = write_y4m(a, n=12, fps=24.0)
         # 24fps: start 4/24, length 6/24 -> frames 4..9
@@ -216,14 +216,14 @@ class TestEDL:
         clip.close()
 
     def test_clip_source_open_end(self, tmp_path):
-        from mpv_frame_interpolator_tpu.io.playlist import ClipSource
+        from mpv_frame_interpolator.io.playlist import ClipSource
         a = tmp_path / "a.y4m"
         write_y4m(a, n=8, fps=24.0)
         got = list(ClipSource(opener(str(a)), start=6 / 24))
         assert len(got) == 2
 
     def test_cli_edl_timeline(self, tmp_path):
-        from mpv_frame_interpolator_tpu.cli import main
+        from mpv_frame_interpolator.cli import main
         a, b = tmp_path / "a.y4m", tmp_path / "b.y4m"
         write_y4m(a, n=10, seed=1)
         write_y4m(b, n=10, seed=9)

@@ -8,11 +8,11 @@ import sys
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.cache import CachedSource
-from mpv_frame_interpolator_tpu.io.reverse import ReversedSource, ReverseError
-from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter
+from mpv_frame_interpolator.frame import FrameFormat, VideoFrame
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.cache import CachedSource
+from mpv_frame_interpolator.io.reverse import ReversedSource, ReverseError
+from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter
 
 
 def write_y4m(path, n=20, w=64, h=48, fps=24.0):
@@ -61,7 +61,7 @@ class TestReversedSource:
     def test_native_ring_source(self, tmp_path):
         """The C++ ring restarts per chunk and its pool absorbs the
         chunk-buffering consumer."""
-        from mpv_frame_interpolator_tpu.io import ingest
+        from mpv_frame_interpolator.io import ingest
         if not ingest.have_native_ingest():
             pytest.skip("native extension not built")
         path = tmp_path / "in.y4m"
@@ -98,11 +98,11 @@ class TestPipelineBackward:
         out = tmp_path / "out.y4m"
         orig = write_y4m(path, n=8)
         r = subprocess.run(
-            [sys.executable, "-m", "mpv_frame_interpolator_tpu", str(path),
+            [sys.executable, "-m", "mpv_frame_interpolator", str(path),
              "--play-direction", "backward", "--untimed", "--no-resume",
              "--display-fps", "24", "--frames", "0", "-o", str(out)],
             capture_output=True, text=True, timeout=600,
-            env={**__import__("os").environ, "MFI_PLATFORM": "cpu"})
+            env=dict(__import__("os").environ))
         assert r.returncode == 0, r.stderr[-2000:]
         got = list(Y4MReader(open(out, "rb")))
         assert len(got) >= 7

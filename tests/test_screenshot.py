@@ -5,10 +5,10 @@ conversion (io/convert.frame_to_rgb), PngDumpSink, and the Player
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.convert import frame_to_rgb, rgb_to_frame
-from mpv_frame_interpolator_tpu.utils.png import (
+from mpv_frame_interpolator.frame import FrameFormat, VideoFrame
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.convert import frame_to_rgb, rgb_to_frame
+from mpv_frame_interpolator.utils.png import (
     decode_png, encode_png, write_png)
 
 
@@ -78,11 +78,11 @@ class TestFrameToRgb:
 
 class TestScreenshotCommand:
     def _run_pipeline(self, tmp_path, n=6):
-        from mpv_frame_interpolator_tpu.api import Player
-        from mpv_frame_interpolator_tpu.io.sinks import NullSink
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.api import Player
+        from mpv_frame_interpolator.io.sinks import NullSink
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
-        from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+        from mpv_frame_interpolator.pipeline.player import Pipeline
         cfg = synthetic.SyntheticConfig(width=64, height=48)
         engine = InterpolationEngine(EngineConfig(
             background_precompile=False, measure_timing=False))
@@ -101,8 +101,8 @@ class TestScreenshotCommand:
         assert img.shape == (48, 64, 3)
 
     def test_screenshot_before_any_frame(self):
-        from mpv_frame_interpolator_tpu.api import Player, PropertyError
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.api import Player, PropertyError
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
         player = Player(engine=InterpolationEngine(EngineConfig(
             background_precompile=False)))
@@ -113,11 +113,11 @@ class TestScreenshotCommand:
         import subprocess, sys, os
         out = tmp_path / "pngs"
         r = subprocess.run(
-            [sys.executable, "-m", "mpv_frame_interpolator_tpu",
+            [sys.executable, "-m", "mpv_frame_interpolator",
              "synthetic:moving_box", "--width", "64", "--height", "48",
              "--frames", "3", "--untimed", "--dump-png", str(out)],
             capture_output=True, text=True, timeout=600,
-            env={**os.environ, "MFI_PLATFORM": "cpu"})
+            env=dict(os.environ))
         assert r.returncode == 0, r.stderr[-2000:]
         files = sorted(out.glob("*.png"))
         assert len(files) >= 3

@@ -13,12 +13,12 @@ import threading
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.y4m import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.y4m import (
     RawYUVReader, Y4MReader, Y4MWriter, Y4MError)
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
-from mpv_frame_interpolator_tpu.pipeline.player import Pipeline
+from mpv_frame_interpolator.pipeline.player import Pipeline
 
 
 def small_y4m(n=20, w=16, h=16, fps=24.0):
@@ -188,7 +188,7 @@ class TestPipelineSeek:
 
 class TestPlayerSeekCommand:
     def test_command_routes_to_pipeline(self):
-        from mpv_frame_interpolator_tpu.api import Player
+        from mpv_frame_interpolator.api import Player
         rdr = Y4MReader(small_y4m(24))
         engine = eng()
         pipe_ref = [None]
@@ -203,7 +203,7 @@ class TestPlayerSeekCommand:
         assert sink.pts[1] >= 12 / 24.0 - 1e-6
 
     def test_command_without_pipeline_errors(self):
-        from mpv_frame_interpolator_tpu.api import Player, PropertyError
+        from mpv_frame_interpolator.api import Player, PropertyError
         player = Player(engine=eng())
         with pytest.raises(PropertyError):
             player.command("seek", 1.0)

@@ -11,8 +11,8 @@ dispatches), or calibrated once per (radius, batch, mode, model) spec in
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 
@@ -101,7 +101,7 @@ class TestAutoMode:
         assert any(spec[0] == 11 for spec in eng._split_cache)
 
     def test_property_read_enables_split(self, frames):
-        from mpv_frame_interpolator_tpu.api import Player
+        from mpv_frame_interpolator.api import Player
         eng = InterpolationEngine(EngineConfig(
             scene_detection=False, auto_quality=False, measure_timing=True,
             background_precompile=False,

@@ -14,19 +14,19 @@ import sys
 
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.io.y4m import Y4MReader
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.io.y4m import Y4MReader
 
 from tests.test_mkv import build_mkv
 
 
 def run_stdin(data: bytes, out, extra=()):
     return subprocess.run(
-        [sys.executable, "-m", "mpv_frame_interpolator_tpu", "-",
+        [sys.executable, "-m", "mpv_frame_interpolator", "-",
          "--untimed", "--no-resume", "--display-fps", "48",
          "-o", str(out), *extra],
         input=data, capture_output=True, timeout=600,
-        env={**os.environ, "MFI_PLATFORM": "cpu",
+        env={**os.environ,
              "MFI_BG_PRECOMPILE": "0"})
 
 
@@ -46,7 +46,7 @@ def test_piped_mkv_plays(tmp_path, small_cfg, ingest):
 def test_piped_y4m_still_streams(tmp_path, small_cfg, ingest):
     import io
 
-    from mpv_frame_interpolator_tpu.io.y4m import Y4MWriter
+    from mpv_frame_interpolator.io.y4m import Y4MWriter
     buf = io.BytesIO()
     w = Y4MWriter(buf, small_cfg.width, small_cfg.height, 24.0)
     for f in synthetic.moving_box(small_cfg, 5):

@@ -6,10 +6,10 @@ import threading
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic, sinks
-from mpv_frame_interpolator_tpu.io.stream import (
+from mpv_frame_interpolator.io import synthetic, sinks
+from mpv_frame_interpolator.io.stream import (
     is_stream_url, open_stream)
-from mpv_frame_interpolator_tpu.io.y4m import Y4MReader, Y4MWriter
+from mpv_frame_interpolator.io.y4m import Y4MReader, Y4MWriter
 
 
 def serve_y4m_over(sock_factory, frames, w, h):
@@ -68,26 +68,26 @@ class TestStreamBackends:
 
 class TestOsd:
     def test_draw_text_marks_plane(self):
-        from mpv_frame_interpolator_tpu.utils.osd import draw_text
+        from mpv_frame_interpolator.utils.osd import draw_text
         y = np.full((64, 128), 100, np.uint8)
         draw_text(y, "R5 ACTIVE 1.23MS", scale=1)
         assert (y == 235).any() and (y == 16).any()     # fg + bg drawn
         assert (y[32:] == 100).all()                    # only the box area
 
     def test_draw_text_p010_values(self):
-        from mpv_frame_interpolator_tpu.utils.osd import draw_text
+        from mpv_frame_interpolator.utils.osd import draw_text
         y = np.full((64, 128), 100 << 8, np.uint16)
         draw_text(y, "0123", scale=1)
         assert (y == (235 << 8)).any()
 
     def test_out_of_bounds_noop(self):
-        from mpv_frame_interpolator_tpu.utils.osd import draw_text
+        from mpv_frame_interpolator.utils.osd import draw_text
         y = np.full((10, 10), 50, np.uint8)
         draw_text(y, "TOOLONGTEXT", scale=4)
         assert (y == 50).all()
 
     def test_osd_sink_end_to_end(self, small_cfg):
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
         eng = InterpolationEngine(EngineConfig(
             scene_detection=False, auto_quality=False, measure_timing=True,

@@ -24,10 +24,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame
-from mpv_frame_interpolator_tpu.ops.flow import (
+from mpv_frame_interpolator.frame import FrameFormat, VideoFrame
+from mpv_frame_interpolator.ops.flow import (
     FlowGeometry, _flow_impl, _subsampled_f2, blur_flow, subpel_refine)
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, _make_source_step)
 
 W, H = 128, 96
@@ -63,7 +63,7 @@ def zoom_frame(t: float) -> VideoFrame:
 def interpolate(f1, f2, t, subpel: bool, model: str = "hopperq"):
     geom = FlowGeometry.create(H, W, W)
     step = _make_source_step(geom, 2, 0, "nearest", False, model,
-                             False, "vmap", subpel)
+                             "vmap", subpel)
     y, uv, blurred, _ = step(
         jnp.asarray(f1.y), jnp.asarray(f1.uv),
         jnp.asarray(f2.y), jnp.asarray(f2.uv),
@@ -226,8 +226,8 @@ def test_shift_probes_match_gather():
     """The phase-decomposed 3x3 probe sampler must be bit-identical to
     the per-pixel-gather form it replaced (same contract as the pyramid
     sampler's runtime fallback)."""
-    import mpv_frame_interpolator_tpu.ops.flow as F
-    from mpv_frame_interpolator_tpu.io import synthetic
+    import mpv_frame_interpolator.ops.flow as F
+    from mpv_frame_interpolator.io import synthetic
     cfg = synthetic.SyntheticConfig(width=W, height=H, fps=24.0)
     f1, f2 = list(synthetic.gradient_pan(cfg, 2, vx=3, vy=2))
     geom = FlowGeometry.create(H, W, W)

@@ -2,7 +2,7 @@
 
 import jax.numpy as jnp
 
-from mpv_frame_interpolator_tpu.utils.trace import annotate, timed_block
+from mpv_frame_interpolator.utils.trace import annotate, timed_block
 
 
 def test_annotate_and_timed_block():

@@ -15,7 +15,7 @@ import struct
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic, utvideo as ut
+from mpv_frame_interpolator.io import synthetic, utvideo as ut
 
 
 def _planes(fourcc, w, h, seed=0):
@@ -82,7 +82,7 @@ class TestNativeParity:
     @pytest.mark.parametrize("fourcc,w,h", [("ULY0", 96, 64),
                                             ("ULY2", 96, 63)])
     def test_matches_python_oracle(self, fourcc, w, h):
-        from mpv_frame_interpolator_tpu.native import _native
+        from mpv_frame_interpolator.native import _native
         planes = _planes(fourcc, w, h, seed=5)
         for pred in (0, 1, 2, 3):
             for slices in (1, 5):
@@ -94,7 +94,7 @@ class TestNativeParity:
                         a, np.frombuffer(b, np.uint8).reshape(a.shape))
 
     def test_fuzz_never_crashes(self):
-        from mpv_frame_interpolator_tpu.native import _native
+        from mpv_frame_interpolator.native import _native
         planes = _planes("ULY0", 64, 48, seed=9)
         pkt = bytearray(ut.encode_frame(planes, slices=3,
                                         pred=ut.PRED_MEDIAN))
@@ -127,7 +127,7 @@ def _ut_payload(frame, slices=2, pred=ut.PRED_MEDIAN):
 class TestAVIIntegration:
     def test_uly0_avi_plays(self, tmp_path):
         from tests.test_jpeg import build_avi
-        from mpv_frame_interpolator_tpu.io.avi import AVIReader
+        from mpv_frame_interpolator.io.avi import AVIReader
         frames = _nv12_frames()
         samples = [_ut_payload(f) for f in frames]
         data = build_avi(samples, 64, 48, fourcc=b"ULY0",
@@ -144,7 +144,7 @@ class TestAVIIntegration:
 
     def test_missing_extradata_rejected(self, tmp_path):
         from tests.test_jpeg import build_avi
-        from mpv_frame_interpolator_tpu.io.avi import AVIError, AVIReader
+        from mpv_frame_interpolator.io.avi import AVIError, AVIReader
         frames = _nv12_frames(2)
         data = build_avi([_ut_payload(f) for f in frames], 64, 48,
                          fourcc=b"ULY0")
@@ -155,7 +155,7 @@ class TestAVIIntegration:
 
     def test_interlaced_rejected(self, tmp_path):
         from tests.test_jpeg import build_avi
-        from mpv_frame_interpolator_tpu.io.avi import AVIError, AVIReader
+        from mpv_frame_interpolator.io.avi import AVIError, AVIReader
         xd = bytearray(ut.make_extradata(2))
         xd[9] |= 0x08                 # flags bit 11
         frames = _nv12_frames(2)
@@ -170,7 +170,7 @@ class TestAVIIntegration:
 class TestMKVIntegration:
     def test_vfw_utvideo_plays(self, tmp_path):
         from tests.test_mkv import build_mkv
-        from mpv_frame_interpolator_tpu.io.mkv import MKVReader
+        from mpv_frame_interpolator.io.mkv import MKVReader
         frames = _nv12_frames()
         payloads = [_ut_payload(f, slices=3) for f in frames]
         bih = struct.pack("<iiiHH4sIiiII", 40 + 16, 64, 48, 1, 24,
@@ -190,7 +190,7 @@ class TestMKVIntegration:
 
     def test_unknown_vfw_codec_rejected(self, tmp_path):
         from tests.test_mkv import build_mkv
-        from mpv_frame_interpolator_tpu.io.mkv import MKVError, MKVReader
+        from mpv_frame_interpolator.io.mkv import MKVError, MKVReader
         bih = struct.pack("<iiiHH4sIiiII", 40, 64, 48, 1, 24,
                           b"XVID", 64 * 48 * 3, 0, 0, 0, 0)
         data = build_mkv(None, 64, 48, codec=b"V_MS/VFW/FOURCC",

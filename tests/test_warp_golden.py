@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from mpv_frame_interpolator_tpu.ops import oracle
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry, make_flow_fn
-from mpv_frame_interpolator_tpu.ops.warp import make_warp_fn
-from mpv_frame_interpolator_tpu.frame import interleave_chroma
+from mpv_frame_interpolator.ops import oracle
+from mpv_frame_interpolator.ops.flow import FlowGeometry, make_flow_fn
+from mpv_frame_interpolator.ops.warp import make_warp_fn
+from mpv_frame_interpolator.frame import interleave_chroma
 
 from conftest import frame_pair, planar
 
@@ -82,7 +82,7 @@ class TestWarpGolden:
 
 class TestStridedWarp:
     def test_warp_with_padding(self):
-        from mpv_frame_interpolator_tpu.io.synthetic import SyntheticConfig
+        from mpv_frame_interpolator.io.synthetic import SyntheticConfig
         cfg = SyntheticConfig(width=64, height=48, stride=80)
         f1, f2, geom, blur = _setup(cfg)
         assert geom.stride == 80 and geom.actual_width == 64
@@ -103,7 +103,7 @@ class TestRandomizedParity:
     @pytest.mark.parametrize("seed", range(6))
     def test_random_config(self, seed):
         import random
-        from mpv_frame_interpolator_tpu.io.synthetic import SyntheticConfig
+        from mpv_frame_interpolator.io.synthetic import SyntheticConfig
         rng = random.Random(seed)
         w = rng.choice([32, 48, 64, 96])
         h = rng.choice([32, 48, 64])

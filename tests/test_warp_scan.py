@@ -11,8 +11,8 @@ import dataclasses as dc
 import numpy as np
 import pytest
 
-from mpv_frame_interpolator_tpu.io import synthetic
-from mpv_frame_interpolator_tpu.pipeline.engine import (
+from mpv_frame_interpolator.io import synthetic
+from mpv_frame_interpolator.pipeline.engine import (
     EngineConfig, InterpolationEngine)
 
 KW = dict(scene_detection=False, auto_quality=False, measure_timing=False,

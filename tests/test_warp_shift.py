@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mpv_frame_interpolator_tpu.frame import FrameFormat, VideoFrame
-from mpv_frame_interpolator_tpu.ops.flow import FlowGeometry
-from mpv_frame_interpolator_tpu.ops import warp as W
+from mpv_frame_interpolator.frame import FrameFormat, VideoFrame
+from mpv_frame_interpolator.ops.flow import FlowGeometry
+from mpv_frame_interpolator.ops import warp as W
 
 H_, W_ = 96, 128
 
@@ -94,17 +94,15 @@ class TestShiftEqualsGather:
 
 class TestEngineDefaultShift:
     def test_config_default_and_validation(self):
-        from mpv_frame_interpolator_tpu.pipeline.engine import EngineConfig
-        # default moved shift -> pair at round 4's close (whole-pair
-        # packed Pallas warp, A/B'd 20.9 vs 23.4 ms at 4K, bit-exact);
-        # ineligible modes/families demote to shift at trace time
-        assert EngineConfig().warp_sampling == "pair"
-        with pytest.raises(ValueError):
-            EngineConfig(warp_sampling="nope")
+        from mpv_frame_interpolator.pipeline.engine import EngineConfig
+        assert EngineConfig().warp_sampling == "shift"
+        for gone in ("nope", "pair", "fused", "pallas"):
+            with pytest.raises(ValueError):
+                EngineConfig(warp_sampling=gone)
 
     def test_engine_outputs_match_gather_engine(self):
-        from mpv_frame_interpolator_tpu.io import synthetic
-        from mpv_frame_interpolator_tpu.pipeline.engine import (
+        from mpv_frame_interpolator.io import synthetic
+        from mpv_frame_interpolator.pipeline.engine import (
             EngineConfig, InterpolationEngine)
         cfg = synthetic.SyntheticConfig(width=64, height=48)
         frames = list(synthetic.moving_box(cfg, 6))

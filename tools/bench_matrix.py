@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """Benchmark matrix runner: every BASELINE-shaped config through
-bench.py, each in its OWN subprocess.
+bench.py, each in its own subprocess.
 
-Per-process isolation matters on this sandbox: a degraded relay readback
-poisons the dispatching process (CLAUDE.md), so each config gets a clean
-one.  Results print as a table plus one JSON line per config; bench.py's
-`sync` field says whether each number is honest ("device-completion") or
-dispatch-paced ("dispatch-ack").
+The subprocesses run strictly one after another, and this parent never
+imports JAX: a JAX process reserves most of the card's memory, so two at
+once would not fit, and two sharing the card would spoil each other's
+times.  Results print as a table plus one JSON line per config (each
+naming the device it ran on).
 
-    PYTHONPATH=.:$PYTHONPATH python tools/bench_matrix.py [--quick]
+    python tools/bench_matrix.py [--quick] [--out rows.jsonl]
 """
 
 import json
@@ -25,8 +25,8 @@ CONFIGS = [
                              "MFI_BENCH_HEIGHT": "1080",
                              "MFI_BENCH_SRC_FPS": "25",
                              "MFI_BENCH_DST_FPS": "60"}),
-    # pair-grouped dispatch (engine.push_many): amortizes the relay's
-    # fixed ~56ms memo-miss cost 8 ways -- the transcode/serving path
+    # pair-grouped dispatch (engine.push_many): the transcode/serving
+    # path
     ("1080p 24->60 grouped x8", {"MFI_BENCH_WIDTH": "1920",
                                  "MFI_BENCH_HEIGHT": "1080",
                                  "MFI_BENCH_DST_FPS": "60",
@@ -78,15 +78,15 @@ def main():
         data = run(label, env_over, quick)
         rows.append(data)
         print(json.dumps(data), flush=True)
-        if out_path:                 # write incrementally: a sick tunnel
-            with open(out_path, "w") as fh:   # must not lose prior rows
+        if out_path:                 # write incrementally: a failed
+            with open(out_path, "w") as fh:   # config keeps prior rows
                 for d in rows:
                     fh.write(json.dumps(d) + "\n")
     print()
-    print(f"{'config':>28} {'out-fps':>10} {'sync':>18}")
+    print(f"{'config':>28} {'out-fps':>10} {'device':>24}")
     for d in rows:
         print(f"{d.get('label', ''):>28} {d.get('value', 0):>10.0f} "
-              f"{d.get('sync', d.get('error', '?')):>18}")
+              f"{d.get('device_kind', d.get('error', '?')):>24}")
     return 0
 
 

@@ -18,10 +18,10 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from mpv_frame_interpolator_tpu.frame import (
+from mpv_frame_interpolator.frame import (
     FrameFormat, VideoFrame, interleave_chroma, psnr_arrays, split_chroma)
-from mpv_frame_interpolator_tpu.models.hopper import HopperModel
-from mpv_frame_interpolator_tpu.ops import warp as W
+from mpv_frame_interpolator.models.hopper import HopperModel
+from mpv_frame_interpolator.ops import warp as W
 
 
 def sine_frames(shift, w=256, h=128):
@@ -54,7 +54,7 @@ def report(shift):
 
     # measured sub-pixel refinement (EngineConfig.subpel_flow): blur the
     # 1/64-pel combined field exactly as the engine does
-    from mpv_frame_interpolator_tpu.ops.flow import (
+    from mpv_frame_interpolator.ops.flow import (
         _subsampled_f2, blur_flow, subpel_refine)
     frac_raw = subpel_refine(m.geom, off, a[0], a[1], a[2],
                              _subsampled_f2(m.geom, a[3], a[4], a[5]))
@@ -117,6 +117,9 @@ def report(shift):
 
 def run():
     import jax
+    from mpv_frame_interpolator.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     print(f"backend: {jax.default_backend()}")
     report(6)      # integer motion: flow locks exactly, subpel is a no-op
     report(2.5)    # fractional motion: integer commits straddle the truth
